@@ -10,7 +10,7 @@ sequence is rendered synthetically and exported into the exact on-disk
 format first (pre3_tpu/data/export.py), so every byte still passes
 through the real parser path.
 
-Run: PYTHONPATH=/root/repo python examples/run_dat_pipeline.py [out_dir]
+Run from the checkout root: python examples/run_dat_pipeline.py [out_dir]
 """
 
 import os

@@ -13,6 +13,7 @@ reference's OVERWRITE/RECALCULATE cache semantics, utils/cache.py).
 
 import os
 import sys
+import tempfile
 import time
 
 import jax
@@ -33,7 +34,8 @@ from pre3_tpu.utils.cache import FeatureCache, VoCache
 from pre3_tpu.vo.dead_reckoning import run_sequence
 
 
-def main(work_dir: str = "/tmp/pre3_keyframing", n_frames: int = 24):
+def main(work_dir: str | None = None, n_frames: int = 24):
+    work_dir = work_dir or tempfile.mkdtemp(prefix="pre3_keyframing_")
     os.makedirs(work_dir, exist_ok=True)
     cam = sr4000_camera()
     print(f"backend: {jax.default_backend()}")

@@ -10,6 +10,7 @@ a PLY map dump.
 """
 
 import sys
+import tempfile
 import time
 
 import jax
@@ -28,7 +29,8 @@ from pre3_tpu.geometry.camera import sr4000_camera
 from pre3_tpu.vo.dead_reckoning import run_sequence
 
 
-def main(out_dir: str = "/tmp/pre3_demo", n_frames: int = 32):
+def main(out_dir: str | None = None, n_frames: int = 32):
+    out_dir = out_dir or tempfile.mkdtemp(prefix="pre3_demo_")
     cam = sr4000_camera()
     print(f"backend: {jax.default_backend()}")
     t0 = time.time()
@@ -98,4 +100,4 @@ def main(out_dir: str = "/tmp/pre3_demo", n_frames: int = 32):
 
 
 if __name__ == "__main__":
-    main(*(sys.argv[1:2] or ["/tmp/pre3_demo"]))
+    main(*sys.argv[1:2])

@@ -10,7 +10,7 @@
 // (inittialize_depth_my_version.m:85).
 //
 // The batch API decodes many frames with a std::thread pool so host IO
-// overlaps TPU compute (the reference used per-frame .mat disk caches
+// overlaps device compute (the reference used per-frame .mat disk caches
 // instead). Exposed as a plain C ABI for ctypes (no pybind11 in the
 // toolchain).
 //

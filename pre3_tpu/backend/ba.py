@@ -52,7 +52,7 @@ class BaProblem(NamedTuple):
     # throws away the motion prior the filter accumulated — on
     # loop-closure-free sequences that reliably makes the global
     # trajectory WORSE even as the landmark cost drops (measured:
-    # BASELINE.md round 2). With them this is a proper fixed-lag
+    # the round-2 record). With them this is a proper fixed-lag
     # smoother: pose-graph chain + landmark factors.
     odo_t: jnp.ndarray | None = None  # [F-1, 3] R_iᵀ(t_{i+1}−t_i)
     odo_q: jnp.ndarray | None = None  # [F-1, 4] q_i⁻¹ ⊗ q_{i+1}
@@ -64,7 +64,7 @@ class BaProblem(NamedTuple):
     # Huber-down-weighted: a genuine long-baseline constraint looks
     # exactly like the outlier the robust loss exists to suppress, and
     # without full quadratic weight BA can smooth but not remove the
-    # accumulated revisit drift (BASELINE.md r3: BA/SLAM plateau ~0.6-0.8
+    # accumulated revisit drift (the round-3 record: BA/SLAM plateau ~0.6-0.8
     # without revisit constraints).
     lc_lm: jnp.ndarray | None = None  # [L] bool
     # Keyframe-to-keyframe loop-closure POSE factors (VERDICT r4 #3): a
@@ -73,7 +73,7 @@ class BaProblem(NamedTuple):
     # landmark set (ekf_ba.py::ba_problem_from_slam). These inject the
     # revisit constraint directly into the pose graph — stronger than
     # un-Huberizing the 1-2 re-acquired landmark factors (measured
-    # neutral, BASELINE.md r4), because the Kabsch estimate fuses EVERY
+    # neutral, the round-4 record), because the Kabsch estimate fuses EVERY
     # co-measured landmark into one rigid constraint. Same residual
     # convention as the odometry chain: lcp_t = R_iᵀ(t_j − t_i),
     # lcp_q = q_i⁻¹ ⊗ q_j. lcp_w = 0 disables a slot (padding).
@@ -394,7 +394,7 @@ def _depth_weights(
     = depth_weight·(ref/range)², equal to the constant at range = ref —
     far observations stop over-pinning the solution the way the
     constant σ = 2 cm prior does (the superlinear late-corridor drift of
-    BASELINE.md's 512-frame run)."""
+    the round-5 record's 512-frame run)."""
     w = mask_xyz.astype(dtype) * depth_weight
     if depth_range_ref > 0:
         rng = jnp.linalg.norm(obs_xyz, axis=-1)  # [F, L]

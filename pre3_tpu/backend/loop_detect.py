@@ -13,8 +13,8 @@ matcher as the frontend) and geometrically verified by the batched
 rigid RANSAC (vo/ransac.py — the same consensus machinery as VO); a
 pair that passes yields one Kabsch-refit relative SE(3) factor
 (BaProblem.lcp_*) whose inlier consensus makes it far more robust than
-merging raw re-matched landmark observations (measured WORSE in r3 —
-BASELINE.md: 0.077 → 0.131 m — because single wrong associations
+merging raw re-matched landmark observations (measured WORSE in round
+3: 0.077 → 0.131 m ATE — because single wrong associations
 survive Huber; a RANSAC-vetted pose factor admits no single wrong
 match).
 
@@ -29,7 +29,7 @@ import jax.numpy as jnp
 import numpy as np
 
 from pre3_tpu.geometry.quaternion import r2q
-from pre3_tpu.ops.matching import match_descriptors_auto
+from pre3_tpu.ops.matching import match_descriptors
 from pre3_tpu.vo.covariance import vo_covariance
 from pre3_tpu.vo.ransac import ransac_rigid
 
@@ -116,7 +116,7 @@ def mine_keyframe_loop_closures(
     @jax.jit
     def match_and_fit(fa_desc, fa_xyz, fa_valid, fb_desc, fb_xyz,
                       fb_valid, k):
-        mt = match_descriptors_auto(
+        mt = match_descriptors(
             fa_desc, fb_desc, valid1=fa_valid, valid2=fb_valid,
             ratio=ratio,
         )

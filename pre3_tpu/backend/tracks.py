@@ -22,7 +22,7 @@ import jax.numpy as jnp
 from pre3_tpu.backend.ba import BaProblem
 from pre3_tpu.frontend.pipeline import Features
 from pre3_tpu.geometry.quaternion import qrotate
-from pre3_tpu.ops.matching import match_descriptors_auto
+from pre3_tpu.ops.matching import match_descriptors
 
 
 class TrackTable(NamedTuple):
@@ -55,7 +55,7 @@ def build_tracks(
 
     def per_kf(table, inp):
         feats, t_wc, q_wc, kfv = inp
-        mt = match_descriptors_auto(
+        mt = match_descriptors(
             table.desc, feats.desc, valid1=table.active,
             valid2=feats.valid, ratio=ratio,
         )

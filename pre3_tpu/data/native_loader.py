@@ -30,10 +30,16 @@ def _load_lib():
     """Build (if needed) and load the native library; None on failure."""
     try:
         if not os.path.exists(_LIB_PATH):
+            # build into a private directory, then rename into place:
+            # concurrent first users never load a half-written library
+            tmp = f"build/tmp.{os.getpid()}"
             subprocess.run(
-                ["make", "-C", _NATIVE_DIR],
+                ["make", "-C", _NATIVE_DIR, f"BUILD={tmp}"],
                 check=True, capture_output=True, timeout=120,
             )
+            os.replace(os.path.join(_NATIVE_DIR, tmp, "libsr4000.so"),
+                       _LIB_PATH)
+            os.rmdir(os.path.join(_NATIVE_DIR, tmp))
         lib = ctypes.CDLL(_LIB_PATH)
     except (OSError, subprocess.SubprocessError):
         return None

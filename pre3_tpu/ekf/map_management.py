@@ -24,7 +24,7 @@ Candidate selection (initialize_features.m dispatch): two modes —
              diag((W/6)², (H/6)²)) weights, sequentially re-normalized
              randsample) realized exactly-in-distribution as one Gumbel
              top-k over log-weights (Efraimidis–Spirakis), which is the
-             static-shape TPU form of sampling without replacement.
+             static-shape form of sampling without replacement.
 tests/test_map_management.py pins the distributional agreement of the
 Gumbel form against a faithful sequential NumPy sampler.
 """
@@ -76,10 +76,9 @@ def _deactivate(state: EkfState, drop: jnp.ndarray) -> EkfState:
         [jnp.ones(CAM_DIM, bool), jnp.repeat(~drop, LM_DIM)]
     )
 
-    # NOTE: gating this behind lax.cond(any(drop)) was measured SLOWER on
-    # TPU (only_predict 1.36 → 2.05 ms/frame): the conditional splits the
-    # scan body into sub-computations and defeats XLA fusion. The
-    # unconditional masked multiply stays.
+    # The masked multiply is unconditional: a lax.cond(any(drop)) gate
+    # splits the scan body into sub-computations and defeats XLA fusion.
+    # Which form is faster on an H100 is not measured (ROADMAP Design 3).
     x = jnp.where(keep_dims, state.x, 0.0)
     p = state.p * keep_dims[:, None] * keep_dims[None, :]
     return state._replace(
@@ -133,8 +132,8 @@ def convert_to_cartesian(
     # J = blockdiag(I, …, B_s, …) applied as gathered strip products on
     # the M selected slots only: row strips then column strips gives
     # exactly J P Jᵀ (still O(M·36·D), now with O(M·6·D) memory traffic).
-    # (A lax.cond skip on no-conversion steps was measured slower on TPU —
-    # conditionals split the scan body and defeat fusion; see _deactivate.)
+    # (No lax.cond skip on no-conversion steps: conditionals split the
+    # scan body and defeat fusion; see _deactivate.)
     d = CAM_DIM + k * LM_DIM
     rows = (CAM_DIM + sel[:, None] * LM_DIM
             + jnp.arange(LM_DIM)[None, :]).reshape(-1)  # [M·6]

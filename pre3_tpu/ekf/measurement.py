@@ -29,7 +29,7 @@ from pre3_tpu.geometry.inverse_depth import (
     inverse_depth_camera_ray,
 )
 from pre3_tpu.geometry.quaternion import qconj, qrotate
-from pre3_tpu.ops.matching import match_descriptors_auto
+from pre3_tpu.ops.matching import match_descriptors
 
 
 class Observations(NamedTuple):
@@ -114,11 +114,10 @@ def predict_measurements(
     pcl = state.p[:CAM_DIM, CAM_DIM:].reshape(CAM_DIM, k, LM_DIM)
     pcl = jnp.swapaxes(pcl, 0, 1)  # [K, 13, 6]
     # Diagonal 6×6 blocks of the landmark-landmark covariance as ONE
-    # static gather. (A vmapped dynamic_slice here compiled to a
-    # 256-iteration XLA loop — 256 tiny slice/update fusions per step,
-    # ~19% of the whole SLAM step on TPU; an einsum-diagonal "kakb->kab"
-    # was 5× worse again — the strided diagonal lowers to scalar loops.
-    # The element gather measured fastest: hlo_stats + timing, r5.)
+    # static gather. (A vmapped dynamic_slice here compiles to a
+    # K-iteration XLA loop of tiny slice/update fusions per step, and an
+    # einsum-diagonal "kakb->kab" lowers to a strided scalar loop. Which
+    # form is fastest on an H100 is not measured: ROADMAP Design 3.)
     rows = CAM_DIM + (
         jnp.arange(k)[:, None] * LM_DIM + jnp.arange(LM_DIM)[None, :]
     )  # [K, 6]
@@ -177,7 +176,7 @@ def search_ic_matches(
             frame.uv[None, :, :] - obs.h[:, None, :], axis=-1
         )  # [K, N]
         pair_mask = d_all <= gate[:, None]
-    m = match_descriptors_auto(
+    m = match_descriptors(
         state.desc, frame.desc, valid1=obs.visible, valid2=frame.valid,
         ratio=ratio, pair_mask=pair_mask,
     )

@@ -1,6 +1,6 @@
 """Warped-patch NCC map matching — the FAST/NCC measurement path.
 
-TPU-native re-design of the reference's correlation matcher
+Dense-tensor re-design of the reference's correlation matcher
 (mex_files/CorePar_Ver1/matching.m:27-180 + corrcoef_partitioned MEX):
 for every map feature, scan candidate pixels inside the innovation
 ellipse of S, correlate the image patch at each candidate against the
@@ -11,8 +11,8 @@ The reference walks the ellipse pixels in a data-dependent double loop
 and calls a partitioned-corrcoef MEX kernel; here each feature gets a
 fixed G×G candidate grid scaled to its own 3σ search box, all K·G²·P²
 candidate-patch pixels are produced by two separable one-hot-blend
-interpolation matmuls (the grid is an outer product per feature — MXU
-work, no gathers), and all K·G² correlations happen as one batched dot
+interpolation matmuls (the grid is an outer product per feature —
+matrix products, no gathers), and all K·G² correlations happen as one batched dot
 product (zero-mean unit-norm patches make NCC an inner product — see
 frontend/patches.py). Static shapes, no native kernel.
 
@@ -98,10 +98,10 @@ def search_ic_matches_ncc(
     # G·P distinct u-coords × G·P distinct v-coords (candidate centers
     # on a regular per-feature grid + integer patch offsets), so the
     # whole [G², P²] patch stack is two interpolation matmuls
-    # W_v · img · W_uᵀ with 2-nonzero one-hot-blend rows — MXU work in
-    # place of the 4·K·G²·P² ≈ 42M scalar gathers per frame that made
-    # the gather formulation the config-#2 bottleneck (bench r4 first
-    # cut: 4.7 fps; the gathers dominated the whole scan step).
+    # W_v · img · W_uᵀ with 2-nonzero one-hot-blend rows — matrix
+    # products in place of 4·K·G²·P² ≈ 42M scalar gathers per frame
+    # (which form is faster is not measured on the H100; ROADMAP
+    # Design 3).
     half = (patch - 1) / 2.0
     offs = jnp.arange(patch) - half
     gp = grid * patch

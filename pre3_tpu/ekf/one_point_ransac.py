@@ -13,7 +13,7 @@ exist, and one otherwise; the hypothesis update then stacks the drawn
 measurements (6-dim innovation, 6×6 S — ransac_hypotheses.m:56-63 builds
 the stacked sparse Hi and block-diagonal R).
 
-TPU shape: draw ALL B hypotheses at once ([B, 3] Gumbel-top-k samples
+Accelerator shape: draw ALL B hypotheses at once ([B, 3] Gumbel-top-k samples
 without replacement — the randperm analog), compute all B partial state
 updates as one batched gain application (ΔX_b = P H_bᵀ S_b⁻¹ ν_b with a
 batched 6×6 Cholesky solve), reproject every landmark under every
@@ -101,7 +101,7 @@ def one_point_ransac(
     # by its (possibly zero) gain — 0·NaN would poison the whole batch.
     # (Zeroing hc/hl [M,2,13] instead of ph [M,D,2] makes the zeroed ph
     # rows fall out of the einsum for free — the post-hoc where was a
-    # full 3 MB copy per step, hlo_stats r5.)
+    # full copy of ph per step.)
     hc_pool = jnp.where(ic_pool[:, None, None], hc_pool, 0.0)
     hl_pool = jnp.where(ic_pool[:, None, None], hl_pool, 0.0)
     # Per-landmark gain column block P H_iᵀ = P[:, cam] Hc_iᵀ +
@@ -119,8 +119,8 @@ def one_point_ransac(
         """Per-hypothesis gain vector y = S⁻¹ν [2S] from its stacked
         matches. Only the CAMERA rows and the drawn slots' landmark rows
         of P·Hᵀ enter S — the [S, D, 2] strips are NOT gathered here
-        (the full-width ΔX is applied afterwards as one batched matmul,
-        which is where the FLOPs belong on the MXU)."""
+        (the full-width ΔX is applied afterwards as one batched
+        matmul)."""
         hc = jnp.where(use_h[:, None, None], hc_pool[idx_h], 0.0)
         hl = jnp.where(use_h[:, None, None], hl_pool[idx_h], 0.0)
         nu = jnp.where(use_h[:, None], nu_all[idx_h], 0.0)  # [S, 2]
@@ -142,9 +142,10 @@ def one_point_ransac(
         s_lm = jnp.einsum("jal,jmlb->jamb", hl, lm_rows)
         s = (s_cam + s_lm).reshape(2 * s_pts, 2 * s_pts)
         s = s + (std_z**2) * jnp.eye(2 * s_pts)
-        # S is PSD + σ²I → unrolled batched Cholesky solve (the LAPACK
-        # custom-call cost ~150 µs/step for the B=256 6×6 batch on TPU;
-        # the unrolled form is pure fused VPU arithmetic)
+        # S is PSD + σ²I → unrolled batched Cholesky solve: pure fused
+        # elementwise arithmetic instead of a solver-library call. Its
+        # cost against cuSOLVER on an H100 is not measured (ROADMAP
+        # Design 3).
         from pre3_tpu.ops.small_chol import chol_solve_unrolled
 
         return chol_solve_unrolled(s, nu.reshape(-1))
@@ -152,10 +153,10 @@ def one_point_ransac(
     ys = jax.vmap(gains_for)(idx, use)  # [B, 2S]
     # ΔX_b = Σ_s ph[idx[b,s]] · y_b[2s:2s+2] — route the gains into
     # pool space and contract once: [B, M, 2] × [M, D, 2] → [B, D]. One
-    # MXU matmul replaces B gathered [D, 2S] @ [2S] products (the old
-    # [B, S, D, 2] gather was ~20 MB of HBM traffic per RANSAC call).
-    # The pool-space routing is a one-hot contraction, not a scatter-add
-    # (the scatter was another 46 µs/step of serialized HBM updates).
+    # matmul replaces B gathered [D, 2S] @ [2S] products (a [B, S, D, 2]
+    # gather moves ~20 MB of device memory per RANSAC call at K=256).
+    # The pool-space routing is a one-hot contraction, not a scatter-add;
+    # the scatter's cost on an H100 is not measured (ROADMAP Design 3).
     ys_gated = jnp.where(use[..., None], ys.reshape(batch, s_pts, 2), 0.0)
     onehot = (idx[..., None] == jnp.arange(m_pool)).astype(ph.dtype)
     w = jnp.einsum("bsm,bse->bme", onehot, ys_gated)  # [B, M, 2]

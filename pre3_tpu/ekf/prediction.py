@@ -8,7 +8,7 @@ F, G Jacobians (odometry_model.m:62-68) are obtained by jax.jacfwd of the
 landmark-landmark block (the O(N²) bulk) is never multiplied by an
 identity — only the camera row/column strips are touched, which is both
 exactly the reference's block structure (predict_state_and_covariance.m:
-131) and the cheap way on TPU.
+131) and the cheap way to do it.
 
 Process noise mirrors the reference's hand-tuned values
 (predict_state_and_covariance.m:98-102): cov_dX = diag((0.01/3)²) and
@@ -86,7 +86,7 @@ def _propagate(
     # update symmetrizes the full P), the cam/landmark strips are written
     # symmetric by construction, and only the 13×13 block needs the
     # explicit 0.5(A+Aᵀ). Saves ~3 full-matrix memory passes per step —
-    # the [D, D] block build was pure HBM traffic at K=512.
+    # the [D, D] block build is pure memory traffic.
     pcc_n = 0.5 * (pcc_n + pcc_n.T)
     p_new = p.at[:CAM_DIM, :CAM_DIM].set(pcc_n)
     p_new = p_new.at[:CAM_DIM, CAM_DIM:].set(pcl_n)

@@ -71,7 +71,7 @@ class SlamConfig(NamedTuple):
     # on every match, so long lifetimes are sound — and they are the
     # single biggest accuracy lever at length: 256-frame corridor ATE
     # 0.597 m (max_age=20) → 0.239 m (unlimited), BA 0.458 → 0.165 m,
-    # at identical cost (BASELINE.md r3 sweep). Set 20 for reference
+    # at identical cost (the round-3 record sweep). Set 20 for reference
     # parity. Tracking-ratio deletion still prunes bad landmarks.
     max_invisible: int = 20  # frames a landmark may stay out of view
     # before deletion (delete_features.m:46). Large values keep a

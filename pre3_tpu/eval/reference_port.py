@@ -2,15 +2,15 @@
 
 Two jobs, neither on any production path:
 
-1. **Baseline denominator** (BASELINE.md): the reference MATLAB pipeline
+1. **Baseline denominator**: the reference MATLAB pipeline
    publishes no frames/s, so the speedup claim needs a measured stand-in.
    `run_reference_slam` reproduces the reference's per-frame control flow
    (mono_slam.m:113-435) at loop-level fidelity — sequential adaptive
    RANSAC everywhere the reference iterates, per-feature Python loops
    where the reference has MATLAB `for` loops, dense EKF algebra — and
-   `tools/measure_baseline.py` times it on this host.
+   `tools/measure_baseline.py` and bench.py time it on the host CPU.
 
-2. **Statistical-parity oracle** (SURVEY §7.3): the TPU engine replaces
+2. **Statistical-parity oracle** (SURVEY §7.3): the JAX engine replaces
    the adaptive sequential RANSAC loops with fixed-budget batched draws;
    `adaptive_ransac_vo` (ransac_dr_ye.m / vodometry_dr_ye.m:150-199) and
    `adaptive_ransac_hypotheses` (ransac_hypotheses.m:27-86) are the

@@ -1,4 +1,4 @@
-"""FAST-9 corner detection, fully vectorized for TPU.
+"""FAST-9 corner detection, fully vectorized.
 
 Re-design of the reference's FAST frontend (fast-matlab-src/
 fast_corner_detect_9.m + fast_nonmax.m, MEX'd via MATLAB Coder — 7.7k lines

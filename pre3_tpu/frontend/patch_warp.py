@@ -1,6 +1,6 @@
 """Warped-patch appearance prediction for NCC map matching.
 
-TPU-native re-design of the reference's patch-warp stack
+Dense-tensor re-design of the reference's patch-warp stack
 (pred_patch_fc.m:27-90, predict_features_appearance.m:26-54,
 rotate_with_dist_fc_c1c2.m / _c2c1.m): each map feature stores the raw
 intensity patch and camera pose captured at initialization; before NCC
@@ -96,8 +96,8 @@ def predict_patch_appearance(
     sample = (uv_i - init_uv + center).reshape(-1, 2)  # [P², 2]
     # Warped coords are not axis-separable (full homography+distortion
     # trace), so the bilinear read is one one-hot contraction over the
-    # flattened init patch instead of 4 scalar gathers — the gather form
-    # was ~365 µs/step for the K-batch under vmap (hlo_stats r5).
+    # flattened init patch instead of 4 scalar gathers (which form is
+    # faster is not measured on the H100; ROADMAP Design 3).
     u = jnp.clip(sample[:, 0], 0.0, pb - 1.001)
     v = jnp.clip(sample[:, 1], 0.0, pb - 1.001)
     u0 = jnp.floor(u).astype(jnp.int32)

@@ -1,10 +1,10 @@
 """Patch descriptors: normalized intensity patches around keypoints.
 
-TPU-native analog of the reference's NCC patch matching frontend
+Dense-tensor analog of the reference's NCC patch matching frontend
 (mex_files/CorePar_Ver1/matching.m:27-180 + corrcoef_partitioned.m:
 warped-patch normalized cross-correlation, threshold 0.60). Key insight:
 zero-mean, unit-norm patch vectors turn NCC into a plain dot product, so
-patch correlation becomes the same MXU matmul as descriptor matching
+patch correlation becomes the same matrix product as descriptor matching
 (ops/matching.py) — `1 − NCC = dist²/2` — and the reference's dedicated
 partitioned-corrcoef MEX kernel disappears into the matcher.
 
@@ -70,8 +70,8 @@ def extract_patch_descriptors(
     The patch grid is an outer product of per-keypoint u-coords ×
     v-coords, so the whole [K, P, P] stack is two separable blend
     matmuls W_v · img · W_uᵀ — identical values to the 4-corner gather
-    form, but MXU work instead of 4·K·P² scalar gathers (which were 55%
-    of the whole FAST+NCC pipeline's device time, hlo_stats r5).
+    form, but matrix products instead of 4·K·P² scalar gathers (which
+    form is faster is not measured on the H100; ROADMAP Design 3).
     """
     h, w = img.shape
     half = (patch - 1) / 2.0

@@ -1,8 +1,8 @@
 """Gaussian scale space + DoG pyramid (XLA convolutions).
 
 Replaces the reference's gaussianss.m / diffss.m / imsmooth.c: separable
-Gaussian blurs become lax.conv_general_dilated pairs (XLA fuses and
-vectorizes these on the VPU/MXU), octaves are built by 2× subsampling, and
+Gaussian blurs become lax.conv_general_dilated pairs (XLA fuses them),
+octaves are built by 2× subsampling, and
 every level has a static shape so the whole pyramid trace-compiles once.
 """
 

@@ -1,4 +1,4 @@
-"""SIFT detector + descriptor, TPU-native.
+"""SIFT detector + descriptor as dense tensor programs.
 
 Re-design of the reference's vendored Vedaldi SIFT (sift/sift_vedal.m:
 1-323 pipeline; C MEX kernels siftlocalmax.c, siftrefinemx.c, siftormx.c,
@@ -13,7 +13,7 @@ to a dense tensor formulation:
                      fixed per-keypoint sample grid (gathered bilinearly)
   siftdescriptor.c → 4×4×8 trilinear binning as an einsum of hat-function
                      weights — the scatter becomes a dense [samples, bins]
-                     contraction that rides the MXU
+                     contraction (a matrix product)
 
 Fixed-capacity keypoint lists per octave (top-k by |DoG|), masked. With
 upright=False each keypoint emits up to 2 orientation peaks (the reference
@@ -24,6 +24,7 @@ the duplicates occupy a second masked [K] block, so capacity doubles to
 
 from __future__ import annotations
 
+import os
 from functools import partial
 from typing import NamedTuple
 
@@ -80,7 +81,7 @@ def _refine(dog: jnp.ndarray):
 
     Returns (offset [S+2, H, W, 3] in (level, row, col) order, edge_ok,
     refined_value). Closed-form 3×3 solve via adjugate (no linalg.solve —
-    stays elementwise on the VPU)."""
+    stays elementwise)."""
     d = dog
     # first derivatives (central)
     gl = 0.5 * (jnp.roll(d, -1, 0) - jnp.roll(d, 1, 0))
@@ -156,15 +157,7 @@ def _detect_octave(
     score = jnp.where(ok, jnp.abs(refined), 0.0)
 
     flat = score.reshape(-1)
-    if _fast_math():
-        # TPU-optimized partial sort: exact top_k fully sorts the ~127k
-        # candidate scores per octave; approx_max_k (recall ≥ 0.98 here —
-        # losses only among the weakest responses) is markedly cheaper
-        vals, idx = jax.lax.approx_max_k(
-            flat, max_keypoints, recall_target=0.98
-        )
-    else:
-        vals, idx = jax.lax.top_k(flat, max_keypoints)
+    vals, idx = jax.lax.top_k(flat, max_keypoints)
     lvl = idx // (h * w)
     rem = idx % (h * w)
     r = rem // w
@@ -290,19 +283,13 @@ def _orientations(
 
 
 def _fast_math() -> bool:
-    """TPU fast-math branch selection (approx_max_k top-k, bf16 band/
-    descriptor matmuls). Env override PRE3_SIFT_FAST_MATH: "1" forces the
-    fast branches on (testable on CPU), "0" forces exact f32 (TPU
-    debugging), unset = fast on TPU only. Read at TRACE time — changing
-    the env after a jitted caller compiled does not retrace; tests should
-    wrap a fresh jit (tests/test_sift.py::TestFastMathBranches).
+    """Opt-in bf16 operands for the band/descriptor matmuls:
+    PRE3_SIFT_FAST_MATH=1 turns them on; unset or any other value keeps
+    exact f32. Read at TRACE time — changing the env after a jitted
+    caller compiled does not retrace; tests should wrap a fresh jit
+    (tests/test_sift.py::TestFastMathBranches).
     """
-    import os
-
-    v = os.environ.get("PRE3_SIFT_FAST_MATH")
-    if v is not None:
-        return v == "1"
-    return jax.default_backend() == "tpu"
+    return os.environ.get("PRE3_SIFT_FAST_MATH") == "1"
 
 
 def _band_matrix(n: int, delta: float) -> np.ndarray:
@@ -319,16 +306,16 @@ def _tri_sepconv(x: jnp.ndarray, delta: float) -> jnp.ndarray:
     out(p) = Σ_q max(0, 1−|pᵣ−qᵣ|/Δ)·max(0, 1−|p_c−q_c|/Δ)·x(q).
 
     Implemented as two banded-matrix contractions rather than
-    conv_general_dilated: a channel-count-1 conv with a ~30-tap spatial
-    kernel runs on the VPU (measured 0.88 ms/frame for the 6-level stack)
-    while the equivalent [H, H] × [H, W·C] matmul rides the MXU. The band
-    matrices are static constants (Δ is trace-time)."""
+    conv_general_dilated, so the ~30-tap spatial kernel becomes an
+    [H, H] × [H, W·C] matrix product. Which of the two is faster on an
+    H100 is not measured (ROADMAP Design 3). The band matrices are
+    static constants (Δ is trace-time)."""
     h, w, _ = x.shape
     br = jnp.asarray(_band_matrix(h, delta))  # [H, H]
     bc = jnp.asarray(_band_matrix(w, delta))  # [W, W]
-    # bf16 inputs with f32 accumulation on TPU: these matmuls feed the
+    # Opt-in bf16 inputs with f32 accumulation: these matmuls feed the
     # descriptor (normalized + clamped downstream), where bf16's ~3
-    # decimal digits are ample; ~2× MXU throughput. CPU keeps f32.
+    # decimal digits are ample.
     if _fast_math():
         br, bc, x = (a.astype(jnp.bfloat16) for a in (br, bc, x))
     y = jnp.einsum("hH,Hwc->hwc", br, x,
@@ -344,13 +331,12 @@ def _descriptors_dense(
     r_f: jnp.ndarray, c_f: jnp.ndarray, sigma: jnp.ndarray,
     s_levels: int, sigma0: float,
 ) -> jnp.ndarray:
-    """Upright 128-D descriptors via dense pre-binning — the TPU-shaped
+    """Upright 128-D descriptors via dense pre-binning — the dense-tensor
     formulation of siftdescriptor.c (SURVEY §2.3). The sampled form
-    (_descriptors) issues ~1k scalar gathers per keypoint, which is the
-    slowest thing a TPU can do; here the irregular work collapses to 64
-    8-vector gathers per keypoint:
+    (_descriptors) issues ~1k scalar gathers per keypoint; here the
+    irregular work collapses to 64 8-vector gathers per keypoint:
 
-      1. orientation binning:  m8[h,w,o] = mag·hat(ang→8 bins)   (dense VPU)
+      1. orientation binning:  m8[h,w,o] = mag·hat(ang→8 bins)   (dense elementwise)
       2. spatial binning:      B = triangle-conv(m8, Δ_l) per level, with
          the footprint Δ_l = MAGNIF·σ_l quantized to the level's nominal
          scale (vlfeat-dsift-style approximation)        (dense sepconv)
@@ -379,9 +365,9 @@ def _descriptors_dense(
 
     # 3. sample each keypoint's 4×4 bin centers. The bilinear gather is
     # reformulated as two one-hot contractions — a [K·16, L·W] × [L·W, H·8]
-    # matmul (level+column taps) followed by a row-tap reduce — because a
-    # [K, 16, 8]-shaped random gather lowers to serialized dynamic-slices
-    # on TPU (measured 1.3 ms/frame) while the matmul rides the MXU.
+    # matmul (level+column taps) followed by a row-tap reduce — instead of
+    # a [K, 16, 8]-shaped random gather. Whether the gather would be
+    # faster on an H100 is not measured (ROADMAP Design 3).
     centers = jnp.arange(NBP, dtype=mag.dtype) - (NBP - 1) / 2.0
     gx, gy = jnp.meshgrid(centers, centers, indexing="xy")
     gxy = jnp.stack([gx.ravel(), gy.ravel()], axis=-1)  # [16, 2] bin units

@@ -1,6 +1,6 @@
 """Geometry & math core: quaternions, SE(3), camera model, inverse depth.
 
-TPU-first re-design of the reference's rotation/camera math layers
+Batched re-design of the reference's rotation/camera math layers
 (reference: slamToolbox FrameTransforms/Rotations, initialize_cam.m,
 hu/hinv/distort/undistort, inverse-depth parameterization). Pure jnp,
 fully vmappable, autodiff-friendly — hand Jacobians from the reference

@@ -1,7 +1,7 @@
 """Quaternion algebra (Hamilton convention, scalar-first [w, x, y, z]).
 
 Semantics mirror the reference's SLAMTB rotation utilities
-(/root/reference/matlab_code/slamToolbox_11_02_18/FrameTransforms/Rotations/
+(matlab_code/slamToolbox_11_02_18/FrameTransforms/Rotations/
 {q2R,R2q,qProd,v2q,q2v,e2q,q2e}.m): ``q2r(q) @ rb`` maps a body-frame vector
 to the world frame. All functions are pure jnp, shaped for vmap (every
 function acts on the trailing axis), and differentiable — the reference's

@@ -1,35 +1,22 @@
-"""Descriptor matching: tiled distance-matrix + Lowe ratio test.
+"""Descriptor matching: distance matrix + Lowe ratio test.
 
 Replaces the reference's brute-force C matcher (sift/siftmatch.c:93-126:
 NN loop over descriptor pairs with ratio acceptance `d_best*thresh < d_2nd`
-on *squared* L2 distances, default thresh 1.5) with an MXU-shaped design:
-the [N1, N2] squared-distance matrix is a single matmul
+on *squared* L2 distances, default thresh 1.5) with a matmul-shaped design:
+the [N1, N2] squared-distance matrix is a single matrix product
 (|a|² + |b|² − 2a·b), and best/second-best reduction + ratio test fuse
-behind it. Two implementations:
-
-  match_descriptors  — pure XLA (matmul + two-pass max). Default path;
-                       XLA already fuses this well for frontend-sized N.
-  match_descriptors_pallas — Pallas kernel that streams N2 tiles through
-                       VMEM keeping only the running best/second per row,
-                       never materializing [N1, N2] in HBM. Wins when
-                       N1·N2 is large (map-scale matching / multi-frame
-                       batches).
-
-Both return, per row of d1: the best-match column index, the two smallest
-squared distances, and the accept mask.
+behind it. Returns, per row of d1: the best-match column index, the two
+smallest squared distances, and the accept mask.
 """
 
 from __future__ import annotations
 
-from functools import partial
 from typing import NamedTuple
 
 import jax
 import jax.numpy as jnp
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
 
-BIG = 1e30  # python float: safe to close over in pallas kernels
+BIG = 1e30
 
 
 class Matches(NamedTuple):
@@ -40,12 +27,12 @@ class Matches(NamedTuple):
 
 
 def _pairwise_dist2(d1: jnp.ndarray, d2: jnp.ndarray) -> jnp.ndarray:
-    """Squared L2 distances [N1, N2] via the matmul identity (MXU path)."""
+    """Squared L2 distances [N1, N2] via the matmul identity."""
     n1 = jnp.sum(d1 * d1, axis=-1, keepdims=True)
     n2 = jnp.sum(d2 * d2, axis=-1, keepdims=True).T
-    # Throughput kernel: ratio-test distances tolerate bf16 passes, so opt
-    # out of the engine-wide "highest" matmul default (pre3_tpu/__init__.py)
-    # and keep the fast MXU path.
+    # Throughput kernel: ratio-test distances tolerate reduced-precision
+    # products, so opt out of the engine-wide "highest" matmul default
+    # (pre3_tpu/__init__.py); on an NVIDIA GPU DEFAULT means TF32.
     g = jnp.dot(d1, d2.T, preferred_element_type=jnp.float32,
                 precision=jax.lax.Precision.DEFAULT)
     return jnp.maximum(n1 + n2 - 2.0 * g, 0.0)
@@ -69,7 +56,7 @@ def match_descriptors(
     mutual: bool = False,
     pair_mask: jnp.ndarray | None = None,
 ) -> Matches:
-    """XLA-path matcher. `ratio` follows siftmatch.c semantics: accept when
+    """Brute-force matcher. `ratio` follows siftmatch.c semantics: accept when
     best_dist2 * ratio < second_dist2 (ratio > 1).
 
     pair_mask [N1, N2]: optional per-pair candidate restriction (e.g. the
@@ -95,146 +82,3 @@ def match_descriptors(
         )
         accepted &= back[idx] == jnp.arange(d1.shape[0])
     return Matches(index=idx, dist2=best, dist2_second=second, accepted=accepted)
-
-
-# ---------------------------------------------------------------------------
-# Pallas kernel: streaming best/second-of-row over N2 tiles.
-# ---------------------------------------------------------------------------
-
-
-def _match_kernel(d1_ref, d2t_ref, n2sq_ref, idx_ref, best_ref, second_ref,
-                  *, tile_n2: int, n2_tiles: int):
-    """Grid: (N1 tiles,). For one [TILE_N1, D] block of d1, stream all
-    [D, TILE_N2] blocks of d2ᵀ through the MXU, maintaining per-row running
-    (best, second, argbest) in VMEM."""
-    d1 = d1_ref[:]  # [T1, D]
-    n1sq = jnp.sum(d1 * d1, axis=-1, keepdims=True)  # [T1, 1]
-
-    t1 = d1.shape[0]
-    best0 = jnp.full((t1,), BIG, jnp.float32)
-    second0 = jnp.full((t1,), BIG, jnp.float32)
-    idx0 = jnp.zeros((t1,), jnp.int32)
-
-    def body(j, carry):
-        best, second, idx = carry
-        d2t = d2t_ref[:, pl.ds(j * tile_n2, tile_n2)]  # [D, T2]
-        n2sq = n2sq_ref[0, pl.ds(j * tile_n2, tile_n2)]  # [T2]
-        g = jnp.dot(d1, d2t, preferred_element_type=jnp.float32)  # [T1, T2]
-        dist2 = jnp.maximum(n1sq + n2sq[None, :] - 2.0 * g, 0.0)
-        tile_best = jnp.min(dist2, axis=-1)
-        tile_idx = jnp.argmin(dist2, axis=-1).astype(jnp.int32) + j * tile_n2
-        # runner-up within the tile
-        cols = jax.lax.broadcasted_iota(jnp.int32, dist2.shape, 1)
-        masked = jnp.where(cols == (tile_idx[:, None] - j * tile_n2), BIG, dist2)
-        tile_second = jnp.min(masked, axis=-1)
-        # merge (best, second) pairs
-        new_best = jnp.minimum(best, tile_best)
-        new_idx = jnp.where(tile_best < best, tile_idx, idx)
-        new_second = jnp.minimum(
-            jnp.maximum(best, tile_best), jnp.minimum(second, tile_second)
-        )
-        return new_best, new_second, new_idx
-
-    best, second, idx = jax.lax.fori_loop(
-        0, n2_tiles, body, (best0, second0, idx0)
-    )
-    # 2-D (1, T1) outputs with the tile on the lane axis: 1-D tiled s32
-    # outputs hit XLA/Mosaic layout mismatches (same pitfall documented in
-    # ops/ransac_score.py out_specs).
-    idx_ref[0, :] = idx
-    best_ref[0, :] = best
-    second_ref[0, :] = second
-
-
-@partial(jax.jit, static_argnames=("ratio", "tile_n1", "tile_n2", "interpret"))
-def match_descriptors_pallas(
-    d1: jnp.ndarray,
-    d2: jnp.ndarray,
-    valid1: jnp.ndarray | None = None,
-    valid2: jnp.ndarray | None = None,
-    ratio: float = 1.5,
-    tile_n1: int = 256,
-    tile_n2: int = 512,
-    interpret: bool = False,
-) -> Matches:
-    """Pallas streaming matcher. Shapes are padded to tile multiples; the
-    validity masks handle the padding."""
-    n1, d = d1.shape
-    n2 = d2.shape[0]
-    if valid1 is None:
-        valid1 = jnp.ones((n1,), bool)
-    if valid2 is None:
-        valid2 = jnp.ones((n2,), bool)
-
-    def rup(x, m):
-        return (x + m - 1) // m * m
-
-    n1p, n2p = rup(max(n1, 8), tile_n1), rup(max(n2, 128), tile_n2)
-    dp = rup(d, 128)
-    d1p = jnp.zeros((n1p, dp), jnp.float32).at[:n1, :d].set(d1)
-    d2p = jnp.zeros((n2p, dp), jnp.float32).at[:n2, :d].set(d2)
-    # invalid columns get +BIG on their squared norm → never selected
-    valid2p = jnp.zeros((n2p,), bool).at[:n2].set(valid2)
-    n2sq = jnp.sum(d2p * d2p, axis=-1)
-    n2sq = jnp.where(valid2p, n2sq, BIG)[None, :]
-
-    n2_tiles = n2p // tile_n2
-    grid = (n1p // tile_n1,)
-    idx, best, second = pl.pallas_call(
-        partial(_match_kernel, tile_n2=tile_n2, n2_tiles=n2_tiles),
-        grid=grid,
-        in_specs=[
-            pl.BlockSpec((tile_n1, dp), lambda i: (i, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((dp, n2p), lambda i: (0, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, n2p), lambda i: (0, 0), memory_space=pltpu.VMEM),
-        ],
-        out_specs=(
-            pl.BlockSpec((1, tile_n1), lambda i: (0, i),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, tile_n1), lambda i: (0, i),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, tile_n1), lambda i: (0, i),
-                         memory_space=pltpu.VMEM),
-        ),
-        out_shape=(
-            jax.ShapeDtypeStruct((1, n1p), jnp.int32),
-            jax.ShapeDtypeStruct((1, n1p), jnp.float32),
-            jax.ShapeDtypeStruct((1, n1p), jnp.float32),
-        ),
-        interpret=interpret,
-    )(d1p, d2p.T, n2sq)
-
-    idx, best, second = idx[0, :n1], best[0, :n1], second[0, :n1]
-    accepted = (best * ratio < second) & (best < BIG) & valid1
-    return Matches(index=idx, dist2=best, dist2_second=second, accepted=accepted)
-
-
-# Measured on TPU v5e (tools/bench_kernels.py, table in BASELINE.md): the
-# streaming Pallas matcher ties XLA at frontend shapes (≤512²) and wins
-# ~2.4× once the [N1, N2] distance matrix stops fitting the fusion budget
-# (8192²: 2.3 ms vs 5.6 ms). Dispatch point: padded problem ≥ 2048².
-_PALLAS_MIN_ELEMS = 2048 * 2048
-
-
-def match_descriptors_auto(
-    d1: jnp.ndarray,
-    d2: jnp.ndarray,
-    valid1: jnp.ndarray | None = None,
-    valid2: jnp.ndarray | None = None,
-    ratio: float = 1.5,
-    pair_mask: jnp.ndarray | None = None,
-) -> Matches:
-    """Production matcher: routes large problems through the Pallas
-    streaming kernel on TPU, everything else through XLA. Shapes are
-    static under jit, so the dispatch is trace-time. pair_mask forces the
-    XLA path (the streaming kernel keeps no [N1, N2] tile to mask — and
-    the gated problems are map-sized, far below the Pallas cutover)."""
-    n1, n2 = d1.shape[0], d2.shape[0]
-    on_tpu = jax.default_backend() == "tpu"
-    if pair_mask is None and on_tpu and n1 * n2 >= _PALLAS_MIN_ELEMS:
-        return match_descriptors_pallas(
-            d1, d2, valid1=valid1, valid2=valid2, ratio=ratio
-        )
-    return match_descriptors(d1, d2, valid1=valid1, valid2=valid2,
-                             ratio=ratio, pair_mask=pair_mask)

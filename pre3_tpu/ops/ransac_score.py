@@ -1,38 +1,37 @@
-"""Pallas kernel: batched RANSAC hypothesis support scoring.
+"""Batched RANSAC hypothesis support scoring.
 
 The [B, N] scoring step of batch-parallel RANSAC (vo/ransac.py — the
-TPU-native replacement for the reference's sequential support loops,
+replacement for the reference's sequential support loops,
 ransac_dr_ye.m:59-71 / RANSAC_CALC_VER2.m:121-125): for every hypothesis
 (R_b, t_b) and every matched point pair, compute ‖R_b·p2 + t_b − p1‖² and
 reduce to per-hypothesis support counts and inlier errors.
 
-Kernel shape: grid over hypothesis tiles; each program holds its [TB, 3, 3]
-rotations + the full point sets in VMEM and runs the [TB·3, N] prediction
-as one MXU matmul, fusing the residual/threshold/reduction — the [B, N]
-inlier tensor never round-trips HBM (the XLA path materializes it). Same
-contract as the jnp fallback `score_hypotheses_xla` (tested equal).
+The 3-term rotation contraction is written as a broadcast multiply-add
+rather than an einsum: XLA then fuses prediction, residual, threshold and
+both reductions into one loop fusion, with no matrix-library call and no
+[B, N, 3] prediction in device memory. A hand-written Pallas (Triton)
+kernel of the same computation did not beat this fusion on an H100
+(PERF.md, Findings).
 """
 
 from __future__ import annotations
 
-from functools import partial
-
-import jax
 import jax.numpy as jnp
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
 
 
-def score_hypotheses_xla(
+def score_hypotheses(
     r: jnp.ndarray,  # [B, 3, 3]
     t: jnp.ndarray,  # [B, 3]
     p1: jnp.ndarray,  # [N, 3]
     p2: jnp.ndarray,  # [N, 3]
     valid: jnp.ndarray,  # [N]
     threshold: jnp.ndarray,  # [] squared-distance gate
-):
-    """Reference implementation: (support [B] i32, mean_err [B] f32)."""
-    pred = jnp.einsum("bij,nj->bni", r, p2) + t[:, None, :]
+) -> tuple[jnp.ndarray, jnp.ndarray]:
+    """(support [B] int32, mean inlier squared error [B] float32)."""
+    # pred[b, n, i] = Σ_j r[b, i, j]·p2[n, j] + t[b, i]
+    pred = t[:, None, :]
+    for j in range(3):
+        pred = pred + r[:, None, :, j] * p2[None, :, j, None]
     resid2 = jnp.sum((pred - p1[None]) ** 2, axis=-1)
     inlier = (resid2 < threshold) & valid[None]
     support = jnp.sum(inlier, axis=-1).astype(jnp.int32)
@@ -40,112 +39,3 @@ def score_hypotheses_xla(
         support, 1
     )
     return support, err
-
-
-def _score_kernel(r_ref, t_ref, p2t_ref, p1sq_ref, p1t_ref, vth_ref,
-                  sup_ref, err_ref, *, n_pts: int):
-    """One hypothesis tile: [TB·3, 3] stacked rotations against all N
-    points. Mosaic-friendly: ONE 2D MXU matmul; everything downstream is
-    elementwise/reduce on the VPU (no batched dot_generals)."""
-    tb3 = r_ref.shape[0]  # TB * 3
-    tb = tb3 // 3
-    r = r_ref[:]  # [TB·3, 3] — rows of all rotations stacked
-    t = t_ref[:]  # [TB·3, 1] — translations interleaved to match
-    p2t = p2t_ref[:]  # [3, N]
-    p1t = p1t_ref[:]  # [3, N]
-    p1sq = p1sq_ref[0, :]  # [N] = ‖p1‖²
-    vth = vth_ref[0, :]  # [N] — threshold where valid else -inf
-
-    # pred (stacked) = R_rows @ p2 + t : [TB·3, N]
-    pred = jnp.dot(r, p2t, preferred_element_type=jnp.float32) + t
-    predb = pred.reshape(tb, 3, n_pts)
-    pred_sq = jnp.sum(predb * predb, axis=1)  # [TB, N]
-    cross = jnp.sum(predb * p1t[None], axis=1)  # [TB, N]
-    resid2 = jnp.maximum(pred_sq - 2.0 * cross + p1sq[None, :], 0.0)
-    inlier = resid2 < vth[None, :]  # invalid cols have vth = -inf
-    support = jnp.sum(inlier.astype(jnp.int32), axis=-1)
-    err = jnp.sum(jnp.where(inlier, resid2, 0.0), axis=-1)
-    sup_ref[0, :] = support
-    err_ref[0, :] = err / jnp.maximum(support.astype(jnp.float32), 1.0)
-
-
-@partial(jax.jit, static_argnames=("tile_b", "interpret"))
-def score_hypotheses_pallas(
-    r: jnp.ndarray,
-    t: jnp.ndarray,
-    p1: jnp.ndarray,
-    p2: jnp.ndarray,
-    valid: jnp.ndarray,
-    threshold: jnp.ndarray,
-    tile_b: int = 256,
-    interpret: bool = False,
-):
-    b = r.shape[0]
-    n = p1.shape[0]
-
-    def rup(x, m):
-        return (x + m - 1) // m * m
-
-    bp = rup(b, tile_b)
-    np_ = rup(n, 128)
-    r_p = jnp.zeros((bp, 3, 3), jnp.float32).at[:b].set(r)
-    t_p = jnp.zeros((bp, 3), jnp.float32).at[:b].set(t)
-    # stack rotation rows: [B·3, 3]; translations interleaved: [B·3, 1]
-    r_rows = r_p.reshape(bp * 3, 3)
-    t_rows = t_p.reshape(bp * 3, 1)
-    p1_p = jnp.zeros((np_, 3), jnp.float32).at[:n].set(p1)
-    p2_p = jnp.zeros((np_, 3), jnp.float32).at[:n].set(p2)
-    validf = jnp.zeros((np_,), bool).at[:n].set(valid)
-    vth = jnp.where(validf, threshold, -jnp.inf)[None, :]  # [1, N]
-    p1sq = jnp.sum(p1_p * p1_p, axis=-1)[None, :]
-
-    sup, err = pl.pallas_call(
-        partial(_score_kernel, n_pts=np_),
-        grid=(bp // tile_b,),
-        in_specs=[
-            pl.BlockSpec((tile_b * 3, 3), lambda i: (i, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((tile_b * 3, 1), lambda i: (i, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((3, np_), lambda i: (0, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, np_), lambda i: (0, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((3, np_), lambda i: (0, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, np_), lambda i: (0, 0),
-                         memory_space=pltpu.VMEM),
-        ],
-        out_specs=(
-            # 2-D outputs with the tile on the lane axis: 1-D outputs hit
-            # XLA/Mosaic layout mismatches for tiled s32 vectors
-            pl.BlockSpec((1, tile_b), lambda i: (0, i),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, tile_b), lambda i: (0, i),
-                         memory_space=pltpu.VMEM),
-        ),
-        out_shape=(
-            jax.ShapeDtypeStruct((1, bp), jnp.int32),
-            jax.ShapeDtypeStruct((1, bp), jnp.float32),
-        ),
-        interpret=interpret,
-    )(r_rows, t_rows, p2_p.T, p1sq, p1_p.T, vth)
-    return sup[0, :b], err[0, :b]
-
-
-def score_hypotheses(
-    r: jnp.ndarray,
-    t: jnp.ndarray,
-    p1: jnp.ndarray,
-    p2: jnp.ndarray,
-    valid: jnp.ndarray,
-    threshold: jnp.ndarray,
-):
-    """Production scorer (used by vo/ransac.py): the Pallas kernel on TPU —
-    it fuses residual/threshold/reduce behind one MXU matmul and never
-    materializes the [B, N, 3] prediction in HBM that the XLA einsum path
-    does — XLA elsewhere (CPU tests run the interpretless jnp path).
-    Measured TPU v5e table in BASELINE.md (tools/bench_kernels.py)."""
-    if jax.default_backend() == "tpu":
-        return score_hypotheses_pallas(r, t, p1, p2, valid, threshold)
-    return score_hypotheses_xla(r, t, p1, p2, valid, threshold)

@@ -2,11 +2,11 @@
 
 The 1-point/3-point RANSAC hypothesis loop solves B≈256 independent
 6×6 (or 2×2) SPD systems S·y = ν per SLAM step. jax.scipy's cho_factor
-lowers to a LAPACK-style custom-call that costs ~150 µs/step for the
-whole batch on TPU (hlo_stats, r5) — two orders of magnitude above the
-arithmetic. For a FIXED tiny n the factorization unrolls into ~n²/2
-scalar recurrences that vectorize over the batch as pure elementwise
-VPU ops and fuse into the surrounding kernel.
+lowers to a solver-library custom call; for a FIXED tiny n the
+factorization instead unrolls into ~n²/2 scalar recurrences that
+vectorize over the batch as pure elementwise ops and fuse into the
+surrounding kernel. Which is faster on an H100 is not measured
+(ROADMAP Design 3).
 
 Used by ekf/one_point_ransac.py (ransac_hypotheses.m:50-63's per-
 hypothesis partial-update solve, batched).

@@ -1,9 +1,10 @@
 """Closed-form batched 3×3 SVD for rigid alignment.
 
-XLA lowers jnp.linalg.svd to an iterative Jacobi algorithm with
-data-dependent while-loops — slow and serialization-heavy on TPU for the
-thousands of tiny [3, 3] factorizations per RANSAC batch (SURVEY §7.3
-"3×3 SVD at scale"). This module computes the SVD in closed form instead:
+XLA lowers jnp.linalg.svd to an iterative algorithm with data-dependent
+loops, for each of the thousands of tiny [3, 3] factorizations per RANSAC
+batch (SURVEY §7.3 "3×3 SVD at scale"). This module computes the SVD in
+closed form instead (its cost against the library SVD on an H100 is not
+measured; ROADMAP Design 3):
 
   1. eigenvalues of the symmetric AᵀA via the trigonometric solution of
      the characteristic cubic (branch-free),
@@ -13,7 +14,7 @@ thousands of tiny [3, 3] factorizations per RANSAC batch (SURVEY §7.3
      rank-deficient inputs (handles the reference's coplanar/collinear
      degeneracies, find_transform_matrix.m:25-37).
 
-Everything is elementwise/VPU arithmetic: vmaps and fuses cleanly.
+Everything is elementwise arithmetic: vmaps and fuses cleanly.
 Accuracy is ~1e-6 relative for well-conditioned inputs — ample for RANSAC
 hypothesis fitting (the final refit can afford it too; verified against
 jnp.linalg.svd in tests/test_svd3.py).

@@ -5,7 +5,7 @@ The map is partitioned by landmarks across the mesh axis "lm" (the
 keyframe-block sharding of SURVEY §2.4): every device linearizes and
 eliminates ITS landmark shard locally (batched 3×3 inverses), the reduced
 camera system — small, [6F, 6F] — is summed across devices with one psum
-riding ICI, solved redundantly on every device (cheaper than scattering a
+over the device links, solved redundantly on every device (cheaper than scattering a
 tiny solve), and landmark updates back-substitute locally with zero
 further communication. Per GN iteration the only collective traffic is
 the psum of S [6F·6F] and rhs [6F].
@@ -81,7 +81,7 @@ def bundle_adjust_sharded(
     (post-psum, not summed across the mesh) and their residuals enter
     the LM accept/reject cost — without them the distributed path would
     re-estimate poses from landmark factors alone and regress on
-    loop-free sequences exactly as BASELINE.md round 2 measured."""
+    loop-free sequences exactly as the round-2 record measured."""
     n_dev = mesh.shape[axis]
     problem, l_orig = _pad_landmarks(problem, n_dev)
     f, l = problem.mask.shape

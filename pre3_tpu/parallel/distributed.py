@@ -3,9 +3,9 @@
 The reference has no distribution at all (SURVEY §2.4); this module is the
 multi-host entry point for the engine's scale-out path (BASELINE config #5:
 N ≥ 2 hosts): `jax.distributed.initialize` + a global mesh whose landmark
-("lm") axis spans every chip in the slice so distributed BA
-(parallel/ba_sharded.py) reduces its camera system over ICI within a host
-and DCN across hosts — the layout keeps the heavy per-landmark elimination
+("lm") axis spans every device of every host so distributed BA
+(parallel/ba_sharded.py) reduces its camera system over NVLink within a
+host and the network across hosts — the layout keeps the heavy per-landmark elimination
 local and ships only the [6F, 6F] reduced system, which is exactly the
 traffic pattern that scales (one psum of a few hundred KB per GN
 iteration regardless of map size).
@@ -27,8 +27,8 @@ def initialize_distributed(
     process_id: int | None = None,
 ) -> None:
     """Initialize multi-host JAX. No-op when single-process (the common
-    test/bench case). On TPU pods the arguments are auto-detected from the
-    environment; pass them explicitly elsewhere."""
+    test/bench case). Pass the coordinator address, process count and
+    process id explicitly: nothing detects a cluster here."""
     if num_processes is not None and num_processes > 1:
         jax.distributed.initialize(
             coordinator_address=coordinator_address,

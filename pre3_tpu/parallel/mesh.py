@@ -2,7 +2,7 @@
 
 The reference is single-process (SURVEY §2.4); scale-out here follows the
 jax sharding recipe: build a Mesh, annotate shardings, let XLA insert
-ICI/DCN collectives. Axes used across the engine:
+the collectives. Axes used across the engine:
 
   "hyp"  — RANSAC hypothesis batch (data parallelism over hypotheses)
   "lm"   — landmark blocks (map sharding for the BA backend)

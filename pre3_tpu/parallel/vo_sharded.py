@@ -4,18 +4,17 @@ The reference's RANSAC loops are sequential (RANSAC_CALC_VER2.m:86-162);
 pre3_tpu already batches them (vo/ransac.py); this module spreads the
 hypothesis batch across a Mesh axis ("hyp"). Each device solves and scores
 its hypothesis shard; the winner is selected by a global reduction (XLA
-inserts the all-reduce over ICI from the sharding annotations — no
+inserts the all-reduce between devices from the sharding annotations — no
 hand-written collectives needed at this level).
 """
 
 from __future__ import annotations
 
-from functools import partial
-
 import jax
 import jax.numpy as jnp
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
+from pre3_tpu.ops.ransac_score import score_hypotheses
 from pre3_tpu.vo.ransac import RansacResult, _sample_hypotheses
 from pre3_tpu.vo.rigid import kabsch
 
@@ -35,8 +34,8 @@ def sharded_ransac_rigid(
 
     Identical math to vo/ransac.py:ransac_rigid; the only difference is the
     with_sharding_constraint on the [B, ...] hypothesis tensors, which makes
-    XLA partition the Kabsch solves and the [B, N] scoring across devices
-    and all-reduce the argmax.
+    XLA partition the Kabsch solves and the [B, N] scoring
+    (ops/ransac_score.py) across devices and all-reduce the argmax.
     """
     n = p1.shape[0]
     hyp_sharding = NamedSharding(mesh, P("hyp"))
@@ -47,25 +46,20 @@ def sharded_ransac_rigid(
     hp2 = p2[idx]
     fits = kabsch(hp1, hp2)
 
-    pred = jnp.einsum("bij,nj->bni", fits.r, p2) + fits.t[:, None, :]
-    pred = jax.lax.with_sharding_constraint(
-        pred, NamedSharding(mesh, P("hyp", None, None))
-    )
-    resid2 = jnp.sum((pred - p1[None]) ** 2, axis=-1)
-    inlier = (resid2 < support_threshold) & valid[None, :]
-    support = jnp.sum(inlier, axis=-1)
-    err = jnp.sum(jnp.where(inlier, resid2, 0.0), axis=-1) / jnp.maximum(
-        support, 1
-    )
+    thr = jnp.asarray(support_threshold)
+    support, err = score_hypotheses(fits.r, fits.t, p1, p2, valid, thr)
+    support = jax.lax.with_sharding_constraint(support, hyp_sharding)
     score = support.astype(jnp.float32) - err / (err + 1.0)
     score = jnp.where(fits.ok, score, -1.0)
     best = jnp.argmax(score)  # global argmax → cross-device reduction
 
-    w = inlier[best].astype(p1.dtype)
+    pred_b = p2 @ fits.r[best].T + fits.t[best]
+    resid2_b = jnp.sum((pred_b - p1) ** 2, axis=-1)
+    w = ((resid2_b < thr) & valid).astype(p1.dtype)
     refit = kabsch(p1, p2, w)
     pred = jnp.einsum("ij,nj->ni", refit.r, p2) + refit.t
     resid2 = jnp.sum((pred - p1) ** 2, axis=-1)
-    inl = (resid2 < support_threshold) & valid
+    inl = (resid2 < thr) & valid
     n_inl = jnp.sum(inl)
     ok = refit.ok & (n_inl >= min_inliers)
     return RansacResult(

@@ -3,12 +3,12 @@
 SURVEY §2.4 "pipeline over SLAM stages": the reference pipelines its
 frontend and backend through DISK — SIFT_extract_save.m writes .mat files
 that SIFT_match_save.m / mono_slam.m read back
-(RANSAC_CALC_SAVE_SR4000.m:14-15). The TPU-native replacement has two
+(RANSAC_CALC_SAVE_SR4000.m:14-15). The device replacement has two
 cooperating mechanisms:
 
 1. **Sharded frontend** (`sharded_extract`): per-frame feature extraction
    is embarrassingly parallel, so a stacked frame chunk is sharded over a
-   mesh axis (devices within a host over ICI; processes/hosts over DCN —
+   mesh axis (devices within a host over NVLink; hosts over the network —
    the same entry point covers both) and the extractor runs SPMD. The
    output features are produced replicated: XLA inserts the all-gather
    that replaces the reference's .mat-file handoff. On h hosts the

@@ -5,7 +5,7 @@ Re-design of the reference's VO-only driver (Test_RANSAC_dead_reckoning.m:
 keeping the previous anchor on failure) and its per-pair engine
 (vodometry_dr_ye.m / RANSAC_CALC_VER2.m).
 
-TPU shape: all per-frame features are extracted up front (batched/jitted),
+Accelerator shape: all per-frame features are extracted up front (batched/jitted),
 then a single `lax.scan` chains frame-to-frame RANSAC fits — the whole
 sequence is ONE device program: no disk caches, no host round trips.
 Failure handling matches the reference: if a pair has no valid solution,
@@ -25,7 +25,7 @@ from pre3_tpu.frontend.pipeline import Features
 from pre3_tpu.geometry.quaternion import qprod, qnormalize, qrotate
 from pre3_tpu.geometry.se3 import Pose
 from pre3_tpu.geometry.quaternion import r2q
-from pre3_tpu.ops.matching import match_descriptors_auto
+from pre3_tpu.ops.matching import match_descriptors
 from pre3_tpu.vo.ransac import RansacResult, ransac_rigid
 
 
@@ -54,7 +54,7 @@ def vo_pair(
     With with_covariance=True, also the IFT covariance of the increment
     (vo/covariance.py) for use as EKF process noise.
     """
-    m = match_descriptors_auto(
+    m = match_descriptors(
         f1.desc, f2.desc, valid1=f1.valid, valid2=f2.valid, ratio=ratio
     )
     p1 = f1.xyz

@@ -7,8 +7,8 @@ icp_with_init.m) — ICP is its verification oracle, not its estimator.
 Same role here: jit-compatible ICP/GICP usable in tests and as VO
 refiners.
 
-TPU shape: nearest neighbors = one [N, M] distance matrix per iteration
-(an MXU matmul via the ‖a‖² − 2a·b + ‖b‖² expansion), correspondence
+Accelerator shape: nearest neighbors = one [N, M] distance matrix per iteration
+(a matrix product via the ‖a‖² − 2a·b + ‖b‖² expansion), correspondence
 trimming by distance threshold, Kabsch refit (ops/svd3) for point-to-
 point / a batched 6×6 normal-equation solve for GICP, fixed iteration
 count under lax.scan — no data-dependent control flow. GICP covariances

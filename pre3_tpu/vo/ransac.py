@@ -5,7 +5,7 @@ Re-design of the reference's sequential RANSAC VO loops
 hypotheses, ≤2000 adaptive iterations; code_from_dr_ye/ransac_dr_ye.m:1-79 —
 4-point hypotheses, ≤700 iterations, support threshold 0.001·dist(minZ pt)).
 
-TPU-first shape (SURVEY §7.1): instead of an adaptive sequential loop, draw
+Accelerator shape (SURVEY §7.1): instead of an adaptive sequential loop, draw
 ALL B hypotheses at once, solve B Kabsch fits with one batched 3×3 SVD
 (vmap), score every hypothesis against every match as one [B, N] tensor op,
 and argmax support — trading wasted hypotheses for total parallelism. A
@@ -24,6 +24,7 @@ from typing import NamedTuple
 import jax
 import jax.numpy as jnp
 
+from pre3_tpu.ops.ransac_score import score_hypotheses
 from pre3_tpu.vo.rigid import RigidFit, kabsch
 
 
@@ -85,11 +86,8 @@ def ransac_rigid(
     hp2 = p2[idx]
     fits = kabsch(hp1, hp2)  # batched over B
 
-    # Score all hypotheses × all matches (Pallas fused kernel on TPU — the
-    # [B, N] inlier tensor and [B, N, 3] prediction never touch HBM; jnp
-    # einsum path elsewhere. ops/ransac_score.py).
-    from pre3_tpu.ops.ransac_score import score_hypotheses
-
+    # Score all hypotheses × all matches as one fused [B, N] reduction
+    # (ops/ransac_score.py).
     support, err = score_hypotheses(
         fits.r, fits.t, p1, p2, valid, jnp.asarray(support_threshold)
     )

@@ -57,7 +57,8 @@ def kabsch(
         w = jnp.ones(p.shape[:-1], p.dtype)
     cp, cq, pc, qc, h = _weighted_stats(p, q, w)
     # closed-form 3×3 SVD (ops/svd3.py): jnp.linalg.svd lowers to an
-    # iterative while-loop algorithm that dominates RANSAC runtime on TPU
+    # iterative solver; its cost on an H100 is not measured (ROADMAP
+    # Design 3)
     u, s, vt = svd3(h)
     # R = Vᵀᵀ... we need R s.t. pc ≈ R qc: R = (V) diag(1,1,d) (Uᵀ) with
     # H = U S Vᵀ built as qc→pc: R = Vᵀᵀ? Derivation: maximize tr(R H) with

@@ -9,9 +9,9 @@ two sharded production entry points on deterministic synthetic problems:
 
   * `bundle_adjust_sharded` — landmark shards split across *processes*
     (the "lm" axis), so the Schur-reduced camera-system psum crosses the
-    process boundary (Gloo on CPU; DCN on real multi-host TPU).
+    process boundary (Gloo on CPU; NCCL between GPU hosts).
   * `sharded_ransac_rigid` — hypothesis batch split across the local
-    "hyp" axis inside each process (ICI on real hardware).
+    "hyp" axis inside each process (NVLink between the GPUs of a host).
 
 Results are dumped as JSON per rank; the parent test asserts cross-rank
 agreement and equality with the single-process implementations.
@@ -99,7 +99,7 @@ def main() -> None:
 
     # --- stage pipeline: frame-sharded frontend feeds the backend -------
     # (SURVEY §2.4 pipeline-over-stages row: frontend work for a frame
-    # chunk is split across the processes — DCN on real hardware — and the
+    # chunk is split across the processes — the network between hosts — and the
     # replicated feature output feeds each rank's backend scan.)
     from pre3_tpu.data.synthetic import render_sequence
     from pre3_tpu.ekf.slam import SlamConfig, run_slam

@@ -151,7 +151,7 @@ class TestEkfBaBridge:
         """ba_problem_from_slam(kf_feats=...) merges cross-keyframe track
         re-matches into the record landmarks: observation count must not
         shrink and the problem stays solvable. (Measured off by default:
-        the merged matches degrade ATE — BASELINE.md r3.)"""
+        the merged matches degrade ATE — the round-3 record.)"""
         from pre3_tpu.backend.ekf_ba import ba_problem_from_slam
         from pre3_tpu.backend.keyframes import select_keyframes
         from pre3_tpu.ekf.slam import run_slam

@@ -75,7 +75,7 @@ class TestDistributedBa:
     def test_matches_single_device_with_odo_factors(self):
         # VERDICT r3 #1: the distributed path must carry the odometry-
         # chain factors (the difference between BA helping and hurting on
-        # loop-free sequences, BASELINE.md round 2) — equality vs the
+        # loop-free sequences, the round-2 record) — equality vs the
         # single-device backend WITH odo_t/odo_q/odo_w set.
         from pre3_tpu.geometry.quaternion import qconj, qprod, qrotate
 

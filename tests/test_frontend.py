@@ -5,13 +5,15 @@ textured landmarks at known world positions, so detected + lifted features
 must back-project onto true landmarks.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 
 from pre3_tpu.data.synthetic import make_scene, make_trajectory, render_frame
 from pre3_tpu.frontend.fast import detect, fast_score_map
 from pre3_tpu.frontend.depth_lift import lift
-from pre3_tpu.ops.matching import match_descriptors, match_descriptors_pallas
+from pre3_tpu.ops.matching import match_descriptors
 
 
 class TestFast:
@@ -105,17 +107,63 @@ class TestMatching:
         m = match_descriptors(d1, d2, valid2=valid2)
         assert not np.any(np.asarray(m.accepted))
 
-    def test_pallas_matches_xla(self):
-        d1, d2, perm = self._descs(n=100, d=40, seed=2)
-        ref = match_descriptors(d1, d2, ratio=1.3)
-        pal = match_descriptors_pallas(d1, d2, ratio=1.3, tile_n1=32,
-                                       tile_n2=128, interpret=True)
-        np.testing.assert_array_equal(pal.accepted, ref.accepted)
-        acc = np.asarray(ref.accepted)
-        np.testing.assert_array_equal(
-            np.asarray(pal.index)[acc], np.asarray(ref.index)[acc]
-        )
-        np.testing.assert_allclose(pal.dist2, ref.dist2, atol=1e-5)
+    def test_matches_numpy_non_tile_shape(self):
+        """100 × 77 × 40: no dimension is a power-of-two tile."""
+        d1, _, _ = self._descs(n=100, d=40, seed=2)
+        d2 = d1[:77] + 0.03 * jax.random.normal(jax.random.PRNGKey(0),
+                                                (77, 40))
+        m = match_descriptors(d1, d2, ratio=1.3)
+        ref = numpy_match(d1, d2, ratio=1.3)
+        np.testing.assert_array_equal(np.asarray(m.index), ref[0])
+        np.testing.assert_array_equal(np.asarray(m.accepted), ref[3])
+        np.testing.assert_allclose(np.asarray(m.dist2), ref[1], atol=1e-5)
+        np.testing.assert_allclose(np.asarray(m.dist2_second), ref[2],
+                                   atol=1e-5)
+
+
+def numpy_match(d1, d2, ratio, pair_mask=None):
+    """float64 brute force: (best index, best, second, accepted)."""
+    d1, d2 = np.asarray(d1, np.float64), np.asarray(d2, np.float64)
+    dist = np.sum((d1[:, None] - d2[None]) ** 2, -1)
+    if pair_mask is not None:
+        dist = np.where(pair_mask, dist, 1e30)
+    idx = np.argmin(dist, -1)
+    srt = np.sort(dist, -1)
+    acc = (srt[:, 0] * ratio < srt[:, 1]) & (srt[:, 0] < 1e30)
+    return idx, srt[:, 0], srt[:, 1], acc
+
+
+@pytest.mark.parametrize("n1,n2,d,gated", [
+    (256, 256, 121, False),  # VO dead reckoning: FAST 11×11 patches
+    (256, 288, 128, True),  # EKF search: map × SIFT frame, ellipse gate
+    (256, 288, 128, False),  # backend track table × SIFT frame
+    (288, 288, 128, False),  # loop detection: keyframe × keyframe
+])
+def test_match_descriptors_call_site_shapes(n1, n2, d, gated):
+    """The matcher at the shapes of its four pipeline call sites
+    (vo/dead_reckoning.py, ekf/measurement.py, backend/tracks.py,
+    backend/loop_detect.py) against a float64 brute force."""
+    rng = np.random.default_rng(n1 + n2 + d)
+    d2 = rng.random((n2, d)) ** 3
+    d2 /= np.linalg.norm(d2, axis=-1, keepdims=True)
+    d1 = d2[rng.permutation(n2)[:n1]] + rng.normal(scale=0.02, size=(n1, d))
+    d1[rng.uniform(size=n1) < 0.2] = rng.random(d)
+    d1 /= np.linalg.norm(d1, axis=-1, keepdims=True)
+    valid1 = rng.uniform(size=n1) < 0.9
+    valid2 = rng.uniform(size=n2) < 0.9
+    mask = rng.uniform(size=(n1, n2)) < 0.5 if gated else None
+    m = jax.jit(match_descriptors, static_argnames=("ratio",))(
+        jnp.asarray(d1, jnp.float32), jnp.asarray(d2, jnp.float32),
+        valid1=jnp.asarray(valid1), valid2=jnp.asarray(valid2), ratio=1.5,
+        pair_mask=None if mask is None else jnp.asarray(mask),
+    )
+    gate = valid2[None, :] if mask is None else mask & valid2[None, :]
+    idx, best, _, acc = numpy_match(d1, d2, 1.5, gate)
+    acc &= valid1
+    np.testing.assert_array_equal(np.asarray(m.accepted), acc)
+    np.testing.assert_array_equal(np.asarray(m.index)[acc], idx[acc])
+    np.testing.assert_allclose(np.asarray(m.dist2)[acc], best[acc],
+                               atol=1e-5)
 
 
 def test_match_pair_mask_recovers_in_gate_runner_up():

@@ -7,7 +7,7 @@ survive dynamic outlier objects the rigid-motion model cannot explain.
 
 Each test corrupts the clean synthetic sequence at sensor-realistic
 rates, runs the full SLAM pipeline, and pins an ATE degradation bound
-(measured values recorded in BASELINE.md round 5).
+(measured values recorded in the round-5 record).
 """
 
 import jax

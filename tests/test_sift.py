@@ -225,9 +225,9 @@ class TestMultiOrientation:
 
 
 class TestFastMathBranches:
-    """The TPU fast-math branches (approx_max_k + bf16 matmuls) forced
-    on CPU via PRE3_SIFT_FAST_MATH (ADVICE r3): the fast path must stay
-    numerically close to the exact path — descriptor matches agree and
+    """The opt-in bf16 matmul branch (PRE3_SIFT_FAST_MATH=1) on CPU,
+    against the exact f32 path (=0): the fast path must stay numerically
+    close to the exact path — descriptor matches agree and
     keypoint sets overlap strongly."""
 
     def test_fast_branch_close_to_exact_on_cpu(self, monkeypatch):

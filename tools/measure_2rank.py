@@ -1,5 +1,5 @@
 """Measured 2-rank scaling of the sharded production paths (VERDICT r3
-#6): replaces the DCN bandwidth *assumption* in BASELINE.md's multi-host
+#6): replaces the inter-host bandwidth *assumption* in the round-5 record's multi-host
 projection with a measured collective-overhead number on the real
 2-process Gloo runtime this repo already exercises for correctness
 (tests/test_multiprocess.py).
@@ -10,7 +10,7 @@ chunk); each rank owns ONE virtual CPU device and is pinned to ONE core
 per-rank compute. Efficiency = T1 / (N · TN).
 
 Caveat printed with the result: Gloo over loopback on a 2-core host is a
-pessimistic transport (no ICI/DCN overlap, shared memory bus); the number
+pessimistic transport (no overlap with compute, shared memory bus); the number
 LOWER-BOUNDS what the same code does on real multi-host links.
 
 Usage: python tools/measure_2rank.py   (writes JSON lines to stdout)

@@ -1,7 +1,7 @@
 """Measure the baseline denominator: frames/s of the reference-faithful
-NumPy port (pre3_tpu/eval/reference_port.py) on this host.
+NumPy port (pre3_tpu/eval/reference_port.py) on the host CPU.
 
-The reference publishes no frames/s (BASELINE.md), so the ≥10× speedup
+The reference publishes no frames/s, so the ≥10× speedup
 claim needs a measured stand-in: this times the mono_slam.m per-frame loop
 port — sequential adaptive RANSAC, per-feature loops, dense EKF — on the
 same synthetic sequence family bench.py uses, at the reference operating
@@ -9,15 +9,16 @@ point (min 50 measured features, mono_slam.m:91). Steady-state fps
 (first-quarter warmup excluded, map at working size) is the number that
 replaces the old MATLAB_FPS estimate in bench.py.
 
-Run: PYTHONPATH=/root/repo python tools/measure_baseline.py
+Run from the checkout root: python tools/measure_baseline.py
 """
 
 import json
+import os
 import sys
 
 import numpy as np
 
-sys.path.insert(0, "/root/repo")
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 from pre3_tpu.data.synthetic import render_sequence  # noqa: E402
 from pre3_tpu.eval.reference_port import run_reference_slam  # noqa: E402

@@ -1,8 +1,7 @@
 """Spare-capacity demonstration (VERDICT r4 #8): batched multi-sequence
 SLAM throughput.
 
-The headline pipeline leaves the chip ~99% idle (mxu_util 0.86%,
-BENCH_r04) because one 176×144 SLAM stream is tiny for a v5e. This tool
+One 176×144 SLAM stream is a small program for an accelerator. This tool
 vmaps the WHOLE jitted pipeline (SIFT frontend + EKF scan) over B
 independent corridor sequences — distinct scenes AND trajectories — and
 measures aggregate frames/s at B ∈ {1, 4, 8, 16}: what the spare
@@ -60,8 +59,8 @@ def main(n_frames=256, batches=(1, 4, 8, 16), n_landmarks=N_LANDMARKS):
         # full-sequence vmapped extractor (the proven B=1 working set —
         # a flat vmap over B×F frames OOMs at B ≥ 4, and mapping over
         # frames inside vmap(B) hit device faults at B = 8); the EKF
-        # scan then vmaps over sequences (per-step kernels batch on the
-        # MXU, which is the capacity story being measured)
+        # scan then vmaps over sequences (per-step work batches across
+        # sequences, which is the capacity story being measured)
         fs = jax.lax.map(
             lambda t: jax.vmap(extract_features_sift)(*t), (i, x, c)
         )

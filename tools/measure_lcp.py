@@ -5,8 +5,8 @@ multi-loop scene (2 out-and-back passes).
 For each scene: run the headline SLAM pipeline, build the BA problem
 (which now mines lcp factors from filter re-acquisitions), and run BA
 with the lcp factors ON vs stripped OFF. Reports SLAM ATE, both post-BA
-ATEs, and the mined factor count. Run on the TPU (default backend) —
-one measurement at a time (the host has 2 cores).
+ATEs, and the mined factor count. Runs on the default backend, one
+measurement at a time.
 
 Usage: python tools/measure_lcp.py [n_frames]
 """

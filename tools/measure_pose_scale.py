@@ -108,7 +108,6 @@ def main(max_f=1024):
 
     jax.config.update("jax_platforms", "cpu")
     jax.config.update("jax_num_cpu_devices", 8)
-    jax.config.update("jax_compilation_cache_dir", "/tmp/pre3_jax_cache")
     jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.5)
 
     from pre3_tpu.parallel.ba_pose_sharded import bundle_adjust_pose_sharded

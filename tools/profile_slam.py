@@ -1,7 +1,7 @@
 """Stage-level wall-clock breakdown of the headline SLAM benchmark.
 
 Times each stage of the bench.py pipeline separately on the current
-backend (TPU when available): frontend SIFT/FAST, VO-only scan, and the
+backend: frontend SIFT/FAST, VO-only scan, and the
 EKF-SLAM scan at the reference operating point (min_measured=50,
 mono_slam.m:91) for both map capacities (K=64, K=256), under SlamConfig
 ablations (only_predict / pure_ekf / 1pre, vo covariance on/off, RANSAC

@@ -7,7 +7,7 @@ work-size artifact):
   * distributed BA (parallel/ba_sharded.py) at the bench scale F=64
     keyframes, L=512 landmarks, WITH odometry-chain factors — the psum of
     the [6F, 6F] reduced system crosses the process boundary (Gloo here;
-    DCN on real multi-host TPU).
+    NCCL between GPU hosts).
   * sharded frontend extraction (runtime/stage_pipeline.sharded_extract)
     of a 32-frame chunk — all-gather of the replicated features.
 

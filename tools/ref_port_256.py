@@ -3,15 +3,16 @@ EXACT 256-frame bench corridor (same renderer call as bench.py) and report
 its ATE + steady-state fps. This is the apples-to-apples accuracy anchor
 the engine's slam_ate_rmse_m must meet or beat (VERDICT r2 item 2).
 
-Run: PYTHONPATH=/root/repo JAX_PLATFORMS=cpu python -u tools/ref_port_256.py
+Run from the checkout root: JAX_PLATFORMS=cpu python -u tools/ref_port_256.py
 """
 
 import json
+import os
 import sys
 
 import numpy as np
 
-sys.path.insert(0, "/root/repo")
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 from pre3_tpu.data.synthetic import render_sequence  # noqa: E402
 from pre3_tpu.eval.reference_port import run_reference_slam  # noqa: E402
